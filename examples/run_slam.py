@@ -111,7 +111,9 @@ def main():
         kitti_stereo_config, synthetic_config, tum_rgbd_config,
     )
     from orb_slam2_2021_tpu.pipeline.system import System
+    from orb_slam2_2021_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     if mode == "synthetic":
         from orb_slam2_2021_tpu.io.synthetic import (
             SyntheticStereoWorld, forward_trajectory,

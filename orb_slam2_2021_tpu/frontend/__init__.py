@@ -1,6 +1,6 @@
 """Frame-level front-end: ORB extraction, stereo matching, frame assembly.
 
-TPU-native replacement for the reference's ORBextractor + Frame layer
+JAX replacement for the reference's ORBextractor + Frame layer
 (/root/reference/src/ORBextractor.cc, src/Frame.cc). All outputs are
 fixed-capacity padded arrays with validity masks so downstream jit shapes are
 static.

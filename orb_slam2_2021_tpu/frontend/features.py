@@ -5,14 +5,15 @@ Equivalent of ORBextractor::operator()
 spatially-bucketed selection (quadtree intent) -> IC orientation -> blurred
 rBRIEF descriptors -> keypoint coordinates scaled to level 0.
 
-TPU shape: instead of the reference's per-level loops (and its two extraction
+Device shape: instead of the reference's per-level loops (and its two extraction
 host threads for the stereo pair, Frame.cc:113-116), ALL eyes x ALL pyramid
 levels are stacked onto one padded canvas tensor [B, L, H, W] and every stage
 runs once, batched:
  - FAST evaluates both thresholds from one shared 16-sample ring;
  - per-cell top-k selection is one batched top_k;
  - a single patch gather [B, N, 31, 31] feeds BOTH the IC-orientation moment
-   matmul and the rBRIEF two-hot matmul (MXU work — see ops/brief.py).
+   matmul and the rBRIEF two-hot matmul (bf16 matrix products — see
+   ops/brief.py).
 Orientation is computed on the blurred patch (the reference uses the raw
 level, ORBextractor.cc:1080); blur is rotationally symmetric so the IC angle
 is preserved while the single gather halves random-access traffic.
@@ -137,8 +138,8 @@ def extract_orb_batched(images, cfg: OrbConfig):
     octave = jnp.concatenate(oct_l, axis=1)
 
     # --- one patch slice-gather from the blurred stack (orientation+BRIEF).
-    # vmapped dynamic_slice fetches contiguous 31-px rows; an element-wise
-    # flat take here is ~15x slower on TPU (random HBM access per element).
+    # vmapped dynamic_slice fetches contiguous 31-px rows instead of an
+    # element-wise flat take (random device-memory access per element).
     blur_stack = gaussian_blur_batched(raw_stack)
     eh = jnp.take(jnp.asarray(ext_h), octave)
     ew = jnp.take(jnp.asarray(ext_w), octave)

@@ -1,6 +1,6 @@
 """Projection-based matching policies for tracking.
 
-TPU-native reformulation of ORBmatcher's candidate-loop searches
+Data-parallel reformulation of ORBmatcher's candidate-loop searches
 (/root/reference/src/ORBmatcher.cc) as masked [P, N] matrix reductions:
 
 - match_last_frame: SearchByProjection(F, LastFrame, th)

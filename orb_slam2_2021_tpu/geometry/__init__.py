@@ -1,6 +1,6 @@
 """Lie-group math substrate (SE3/Sim3) and camera models.
 
-TPU-native replacement for the reference's L0 layer
+JAX replacement for the reference's L0 layer
 (/root/reference/Thirdparty/g2o/g2o/types/se3quat.h, sim3.h,
 /root/reference/src/Converter.cc). Everything operates on jnp arrays with
 arbitrary leading batch dims; poses are (R: [..,3,3], t: [..,3]) pairs, with

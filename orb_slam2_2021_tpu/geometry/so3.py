@@ -1,7 +1,7 @@
 """SO(3): rotation exp/log maps and quaternion conversions.
 
-Batched over arbitrary leading dims; float32 by default (TPU-native — the
-reference's g2o runs double on CPU, se3quat.h; we keep angles well-conditioned
+Batched over arbitrary leading dims; float32 by default (the accelerator's
+native width — the reference's g2o runs double on CPU, se3quat.h; we keep angles well-conditioned
 with Taylor fallbacks near theta=0 instead).
 """
 

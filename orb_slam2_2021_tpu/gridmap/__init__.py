@@ -1,6 +1,6 @@
 """2-D occupancy-grid mapping (the fork's fourth pipeline stage).
 
-TPU-native replacement for GridMapping
+Device-side replacement for GridMapping
 (/root/reference/src/GridMapping.cpp): per keyframe, project the camera
 center and its map points onto the ground (x, z) grid and ray-cast
 visit/occupied counters; on loop closure, reset and replay all keyframes

@@ -1,6 +1,6 @@
 """Map data model: struct-of-arrays keyframe/landmark store.
 
-TPU-native replacement for the reference's pointer-graph map
+Array-based replacement for the reference's pointer-graph map
 (/root/reference/src/Map.cc, KeyFrame.cc, MapPoint.cc): instead of
 mutex-guarded objects, the map is a set of flat numpy arrays on the host
 (single-writer: the mapping thread), from which immutable device snapshots

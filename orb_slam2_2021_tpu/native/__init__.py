@@ -2,32 +2,63 @@
 
 The compute path of this engine is JAX/XLA; this module is the native
 runtime piece for host-side bookkeeping the reference implements in C++
-(KeyFrame/MapPoint member functions). Built on first import with g++ and
-cached next to the source; everything degrades gracefully to the numpy
-implementations when no compiler is available (`HAVE_NATIVE` is False).
+(KeyFrame/MapPoint member functions). `map_core.cpp` is compiled with g++ at
+first import into `build/native/` at the checkout root (the build also runs
+alone with `python -c "import orb_slam2_2021_tpu.native"`). The library's
+name carries a hash of the source and the compiler flags, so an edited
+source is rebuilt and a stale binary is never loaded. Everything degrades
+gracefully to the numpy implementations when no compiler is available
+(`HAVE_NATIVE` is False).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_DIR, "map_core.cpp")
-_LIB = os.path.join(_DIR, "libmapcore.so")
+SRC = os.path.join(_DIR, "map_core.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build", "native")
+CXXFLAGS = ("-O3", "-shared", "-fPIC")
 
 _lib = None
 
 
-def _build():
-    cmd = [
-        "g++", "-O3", "-march=native", "-shared", "-fPIC",
-        _SRC, "-o", _LIB,
-    ]
-    subprocess.run(cmd, check=True, capture_output=True)
+def lib_path(src: str = SRC, build_dir: str = BUILD_DIR) -> str:
+    """Where the library built from `src` lives: named by the hash of the
+    source bytes and the flags."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(CXXFLAGS).encode())
+    return os.path.join(build_dir, f"libmapcore-{h.hexdigest()[:16]}.so")
+
+
+def build(src: str = SRC, build_dir: str = BUILD_DIR) -> str:
+    """Compile `src` unless its hash-named library exists; return the path.
+
+    g++ writes to a temporary name in the same directory and the result is
+    moved into place with os.replace, so concurrent builds (test workers)
+    never load a half-written file."""
+    out = lib_path(src, build_dir)
+    if os.path.exists(out):
+        return out
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=build_dir, suffix=".so.tmp")
+    os.close(fd)
+    try:
+        subprocess.run(["g++", *CXXFLAGS, src, "-o", tmp], check=True,
+                       capture_output=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
 
 
 def _load():
@@ -35,9 +66,7 @@ def _load():
     if _lib is not None:
         return _lib
     try:
-        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-            _build()
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(build())
     except (OSError, subprocess.CalledProcessError):
         return None
 

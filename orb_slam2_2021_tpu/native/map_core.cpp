@@ -12,7 +12,8 @@
 //   3. covisibility weight recount for a keyframe
 //      (KeyFrame::UpdateConnections, KeyFrame.cc:304-395).
 //
-// Build: g++ -O3 -march=native -shared -fPIC map_core.cpp -o libmapcore.so
+// Built at first import by native/__init__.py (g++ -O3 -shared -fPIC) into
+// build/native/ at the checkout root.
 
 #include <cstdint>
 #include <cstring>

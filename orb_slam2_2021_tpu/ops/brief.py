@@ -48,7 +48,7 @@ def _bit_weights():
     return (np.uint32(1) << np.arange(32, dtype=np.uint32)).astype(np.uint32)
 
 
-N_BINS = 64          # descriptor-rotation quantization for the MXU path
+N_BINS = 64          # descriptor-rotation quantization for the matmul path
 PATCH_HALF = 15      # sampling patch half-size (shared with orientation)
 PATCH_SIDE = 2 * PATCH_HALF + 1
 
@@ -57,7 +57,7 @@ PATCH_SIDE = 2 * PATCH_HALF + 1
 def brief_bin_matrices(n_bins: int = N_BINS):
     """Per-rotation-bin two-hot sampling matrices [n_bins, 961, 256] int8.
 
-    The MXU formulation of rBRIEF: for a 31x31 patch flattened to p in
+    The matrix-product formulation of rBRIEF: for a 31x31 patch flattened to p in
     R^961, bit i under rotation bin b is sign(p @ D[b, :, i]) where D has +1
     at the rotated coordinate of the pair's second endpoint and -1 at the
     first — the dot IS the intensity difference (exact, two nonzeros).
@@ -82,14 +82,14 @@ def brief_bin_matrices(n_bins: int = N_BINS):
 
 
 def brief_from_patches(patches, angles):
-    """Descriptors from pre-gathered patches — the MXU hot path.
+    """Descriptors from pre-gathered patches — the matmul hot path.
 
     patches: [..., 961] float (31x31 blurred intensities, row-major);
     angles: [...] radians. Returns [..., 8] uint32.
 
     bits = sign((patch . D_bin)) accumulated over rotation bins with a
     per-keypoint bin mask; every bin's product is a dense [N, 961]x[961, 256]
-    bf16 matmul on the MXU (fp32 accumulation).
+    bf16 matmul (fp32 accumulation).
     """
     D = brief_bin_matrices()
     lead = patches.shape[:-1]

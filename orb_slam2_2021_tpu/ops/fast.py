@@ -5,7 +5,7 @@ ORBextractor::ComputeKeyPointsOctTree (/root/reference/src/ORBextractor.cc:
 768-856): segment test on the 16-pixel Bresenham circle (radius 3) requiring
 a contiguous arc of >= 9 brighter / darker pixels, a response score, and 3x3
 non-max suppression. Instead of per-cell scalar loops, the whole level is
-evaluated at once on the VPU: 16 shifted copies of the image + boolean arc
+evaluated at once: 16 shifted copies of the image + boolean arc
 reductions; NMS via reduce_window max-pooling.
 """
 
@@ -104,7 +104,7 @@ def fast_detect_batched(images, ini_threshold: float, min_threshold: float,
     Both thresholds share the 16 shifted reads — the reference runs cv::FAST
     twice per empty cell (ORBextractor.cc:812-819). The segment test packs
     the ring comparisons into per-pixel 16-bit masks and checks the
-    9-contiguous arc with bit rotations: everything is elementwise VPU work
+    9-contiguous arc with bit rotations: everything is elementwise work
     XLA fuses into one kernel; nothing [16, B, H, W]-shaped is materialized.
     Returns (strict, relaxed) NMS'd score maps, zero outside
     [border, ext-border).

@@ -1,17 +1,17 @@
 """Packed-descriptor Hamming distance kernels.
 
 Replaces ORBmatcher::DescriptorDistance's SWAR popcount
-(/root/reference/src/ORBmatcher.cc:1672-1688) with an MXU formulation: the
-256 descriptor bits are unpacked to a {0,1} bf16 matrix once per side and the
-full [N, M] distance matrix every matcher policy reduces over comes from ONE
-systolic-array matmul via
+(the reference's src/ORBmatcher.cc:1672-1688) with a matrix-product
+formulation: the 256 descriptor bits are unpacked to a {0,1} bf16 matrix once
+per side and the full [N, M] distance matrix every matcher policy reduces over
+comes from ONE bf16 matmul via
 
     hamming(a, b) = popcnt(a) + popcnt(b) - 2 * <bits_a, bits_b>.
 
 The dot products accumulate in f32 (preferred_element_type), and {0,1}
 values as well as row popcounts (<= 256 = 2^8) are exact in bf16/f32, so the
-result is bit-identical to the XOR+popcount formulation while running on the
-MXU instead of 8 elementwise [N, M] VPU passes.
+result is bit-identical to the XOR+popcount formulation (hamming_pair), which
+stays the plain reference.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def unpack_bits(a):
 
 
 def hamming_matrix(a, b):
-    """[N, 8] x [M, 8] -> [N, M] int16 distance matrix (one MXU matmul).
+    """[N, 8] x [M, 8] -> [N, M] int16 distance matrix (one bf16 matmul).
 
     int16 halves the dominant HBM traffic (the [N, M] write + its consumer
     read); distances are <= 256 so the narrow type is exact, and every

@@ -3,7 +3,7 @@
 Replaces ORBextractor::ComputePyramid (/root/reference/src/ORBextractor.cc:
 1105-1135) and the pre-descriptor GaussianBlur(7x7, sigma=2)
 (ORBextractor.cc:1082-1088). Bilinear resize via jax.image; blur as two 1-D
-convolutions so XLA maps them onto the VPU with fused padding.
+convolutions with fused padding.
 """
 
 from __future__ import annotations
@@ -51,9 +51,9 @@ def _gaussian_kernel(ksize: int, sigma: float):
 def gaussian_blur_batched(images, ksize: int = 7, sigma: float = 2.0):
     """Separable blur over a batch [..., H, W] as shift-multiply-adds.
 
-    The conv formulation (below) lowers to a general convolution that the
-    TPU backend executes poorly at C=1; k shifted fused multiply-adds per
-    axis are pure VPU work and fuse into one kernel per axis.
+    k shifted fused multiply-adds per axis are exact f32 elementwise work
+    that fuses into one kernel per axis; the conv formulation (below) would
+    be a single-channel general convolution, which a GPU may run in TF32.
     """
     k = _gaussian_kernel(ksize, sigma)
     half = ksize // 2

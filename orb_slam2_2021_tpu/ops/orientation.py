@@ -71,7 +71,7 @@ def angles_from_patches(patches):
     """IC angles from pre-gathered [..., 961] patches (31x31 row-major).
 
     The moment sums become one [N, 961] x [961, 2] matmul (bf16 in, fp32
-    accumulate) — MXU work instead of masked VPU reductions.
+    accumulate) instead of masked reductions.
     """
     W = jnp.asarray(_moment_matrix(), jnp.bfloat16)
     lead = patches.shape[:-1]

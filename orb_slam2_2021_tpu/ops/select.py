@@ -52,7 +52,7 @@ def select_keypoints_batched(strict_score, relaxed_score, n_top: int, cell: int)
     combined = jnp.where(has_strict, s_cells, r_cells)
 
     k = min(K_PER_CELL, cell * cell)
-    # iterative argmax-and-suppress: k passes of cheap VPU reductions beat
+    # iterative argmax-and-suppress: k passes of cheap reductions beat
     # lax.top_k's full per-row sort for k << row length (NMS leaves rows
     # nearly empty anyway)
     vals_l, idx_l = [], []

@@ -5,7 +5,7 @@ which calls cv::undistortPoints on the detected pixel coordinates so all
 downstream geometry (matching windows, triangulation, BA residuals) sees an
 ideal pinhole camera. cv::undistortPoints inverts the distortion model by
 fixed-point iteration; we do the same with a compile-time-unrolled loop so
-the whole [N,2] batch is one fused VPU program inside the frame-build jit —
+the whole [N,2] batch is one fused program inside the frame-build jit —
 no per-point host loop.
 
 Model (OpenCV / reference convention, 5 coefficients k1 k2 p1 p2 k3):
@@ -47,7 +47,7 @@ def undistort_points(xy, fx, fy, cx, cy, dist: Sequence[float], iters: int = 10)
     Fixed-point iteration x <- (xd - tangential(x)) / radial(x) starting from
     the distorted coords, exactly cv::undistortPoints' scheme (it runs 5
     iterations; we run 10 for the strong TUM freiburg1 distortion). The loop
-    is unrolled at trace time — 10 fused elementwise passes on the VPU."""
+    is unrolled at trace time — 10 fused elementwise passes."""
     xd = (xy[..., 0] - cx) / fx
     yd = (xy[..., 1] - cy) / fy
     x, y = xd, yd

@@ -115,7 +115,7 @@ def assemble_ba_problem(
         # re-scatter the flat observation arrays into the dense per-point
         # layout (obs index o = p*Q + q) consumed by optim.ba_cg's PQ solver:
         # point reductions become reshape-sums and camera reductions one-hot
-        # MXU matmuls — no TPU scatters. Requires Q_pad (and callers should
+        # matmuls — no scatters. Requires Q_pad (and callers should
         # pass obs_per_point_cap = Q_pad so nothing silently drops here).
         assert Q_pad is not None
         sel = np.clip(pt_obs, 0, None).reshape(-1)

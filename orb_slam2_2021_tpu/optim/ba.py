@@ -5,7 +5,7 @@ Optimizer::LocalBundleAdjustment / ::BundleAdjustment
 (/root/reference/src/Optimizer.cc:51-240, 454-782;
 Thirdparty/g2o/g2o/core/block_solver.hpp:51-123 `_Hschur`/`_DInvSchur`).
 
-TPU-native shape-static formulation: the problem is padded tensors
+Shape-static formulation: the problem is padded tensors
   cameras  : R [C,3,3], t [C,3]  (first n_opt optimizable, rest fixed)
   points   : xw [P,3]
   obs      : cam [O], pt [O], uvr [O,3] (u_r<0 = mono), inv_sigma2 [O], valid [O]
@@ -13,11 +13,11 @@ TPU-native shape-static formulation: the problem is padded tensors
              used to build the Schur cross terms.
 
 One LM iteration:
-  residual/Jacobian blocks for all O observations in parallel (VPU);
+  residual/Jacobian blocks for all O observations in parallel;
   U = sum JcT W Jc (per cam, segment_sum), V = sum JpT W Jp (per point),
   W_ip = JcT W Jp (per obs); Schur reduced camera system
   S = U* - sum_p W V*^-1 WT assembled dense [6C, 6C] (local windows are
-  <= 64 cams -> a 384x384 dense solve on the MXU), back-substitution for
+  <= 64 cams -> a 384x384 dense solve), back-substitution for
   points. Damping on the U/V diagonals; accept/reject step on total
   robust cost. Mirrors the reference's two-phase schedule (5 its with Huber,
   reclassify outliers, 10 its without) via the `phases` argument.
@@ -34,7 +34,7 @@ import jax.numpy as jnp
 from ..config import OptimConfig
 from ..geometry.camera import PinholeCamera
 from ..geometry.se3 import se3_compose, se3_exp
-from ..xmath import HIGHEST, smm, smv
+from ..xmath import HIGHEST, mm, smm, smv
 from .robust import (
     huber_weight,
     point_jacobian_pose,
@@ -122,7 +122,7 @@ def _lm_step(cam, prob: BAProblem, R, t, xw, active, lam, use_huber, cfg: OptimC
     axis), observations/points are sharded per device and the camera-side
     blocks are psum-reduced over the axis — the distributed BA recipe of
     SURVEY.md §5: landmark blocks local, reduced camera system all-reduced
-    over ICI."""
+    across the devices."""
     C = prob.R.shape[0]
     P = prob.xw.shape[0]
     O = prob.obs_cam.shape[0]
@@ -203,7 +203,7 @@ def _lm_step(cam, prob: BAProblem, R, t, xw, active, lam, use_huber, cfg: OptimC
         b_corr = jax.lax.psum(b_corr, axis_name)
     b_schur = b_c - b_corr
 
-    # dense solve of the reduced camera system (MXU: [6C, 6C]).
+    # dense solve of the reduced camera system ([6C, 6C]).
     # Minimum-norm solve via eigendecomposition with a relative cutoff: a
     # monocular problem with too few fixed cameras has an exact scale
     # null-space (similarity gauge), and a plain solve at small lambda
@@ -222,7 +222,7 @@ def _lm_step(cam, prob: BAProblem, R, t, xw, active, lam, use_huber, cfg: OptimC
     eigw, eigv = jnp.linalg.eigh(S_sym)
     cutoff = jnp.maximum(jnp.max(jnp.abs(eigw)), 1e-12) * 1e-6
     inv_w = jnp.where(eigw > cutoff, 1.0 / eigw, 0.0)
-    delta_c = (eigv @ (inv_w * (eigv.T @ rhs))).reshape(C, 6)
+    delta_c = mm(eigv, inv_w * mm(eigv.T, rhs)).reshape(C, 6)
     delta_c = delta_c * prob.cam_free[:, None]
 
     # back-substitute points: delta_p = -V^-1 (b_p + sum_i W_ip^T delta_c_i)

@@ -13,7 +13,7 @@ VertexSim3Expmap/EdgeSim3 (types_seven_dof_expmap.h:48-169):
   (vmapped), then Levenberg-Marquardt where each normal-equation solve is a
   matrix-free Jacobi-preconditioned CG over the [K,7] tangent stack —
   scales to thousands of keyframes with only segment-sum/gather traffic
-  (no giant dense Hessian), the TPU-native analogue of g2o's sparse solver.
+  (no giant dense Hessian), the data-parallel analogue of g2o's sparse solver.
 
 Scale handling: fix_scale=True (stereo/RGBD, Optimizer.cc:811-847) zeroes
 the log-scale component of every update.

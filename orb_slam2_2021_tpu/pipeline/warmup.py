@@ -2,17 +2,20 @@
 
 XLA compiles one executable per program shape; shapes that first appear
 mid-run (local-BA size buckets as the map grows, the loop-closure stack at
-the first fired loop) cost seconds of compile ON the tracking-critical path
-— measured on the r5 bench: ~10.4 s stalled at the loop frame and ~3.5 s of
-BA-bucket compiles spread over the first 30 frames. The reference has no
-analogue (C++ is AOT), so its startup cost is vocabulary loading
-(System.cc:84-98) — ours is jit warmup; both belong at startup, not mid-run.
+the first fired loop) cost seconds of compile ON the tracking-critical path.
+The reference has no analogue (C++ is AOT), so its startup cost is
+vocabulary loading (System.cc:84-98) — ours is jit warmup; both belong at
+startup, not mid-run.
 
 warmup_system() runs a tiny synthetic instance of every bucketed program the
-pipeline can reach in steady state, so each is compiled (and lands in the
-persistent compile cache) before the first real frame. With a warm
-persistent cache (jax_compilation_cache_dir) the whole pass is seconds; on a
-cold machine it is a one-time multi-minute build.
+pipeline can reach in steady state, and drives a throwaway synchronous
+System over a short synthetic sequence at the real shapes (the tracking
+lane's programs and the first keyframe's mapping pass), so each program is
+compiled (and lands in the persistent compile cache) before the first real
+frame. A compile left to the first real keyframe stalls the mapping worker
+while tracking runs on without new keyframes. With a warm persistent cache
+(jax_compilation_cache_dir) the whole pass is seconds; on a cold machine it
+is a one-time multi-minute build.
 """
 
 from __future__ import annotations
@@ -56,10 +59,34 @@ def _dummy_pq_problem(C: int, P: int, Q: int, rng):
     )
 
 
+def _warm_pipeline(sys_):
+    """Drive a throwaway synchronous System (same config, same vocabulary,
+    its own map and keyframe database, no loop closing) over a seeded
+    synthetic orbit: compiles the u8 frame build, initialization pack,
+    reference-KF and fused track steps, and the first keyframe's mapping
+    pass (triangulation, fusion, local BA, culling, grid update). The jitted
+    programs are shared through the lru-cached factories, so the real System
+    starts warm. The drive runs past the max-frames keyframe rule
+    (TrackingConfig.max_frames_between_kf), so a second keyframe is made."""
+    from ..io.synthetic import SyntheticCylinderWorld, orbit_trajectory
+    from ..place.bundle import PlaceRecognition
+    from .system import System
+
+    cfg = sys_.cfg
+    n_frames = cfg.tracking.max_frames_between_kf + 2
+    place = PlaceRecognition(sys_.place.voc) if sys_.place is not None else None
+    tmp = System(cfg, place_rec=place, enable_loop_closing=False)
+    world = SyntheticCylinderWorld(cfg, seed=1)
+    for i, (R, t) in enumerate(orbit_trajectory(n_frames, total_deg=40.0)):
+        left, right = world.render(R, t)
+        tmp.track_stereo(left, right, timestamp=0.1 * i)
+    tmp.shutdown()
+
+
 def warmup_system(sys_, verbose: bool = False):
     """Precompile the bucketed device programs the running pipeline reaches.
 
-    Covers (beyond what a dozen driven warmup frames already compile):
+    Covers, beyond the throwaway drive (_warm_pipeline):
     - local-BA chunk programs at every (P, Q) size bucket
       (local_mapping._local_ba bucketing);
     - the host-stepped global-BA iteration at the loop-scale shape buckets
@@ -82,6 +109,10 @@ def warmup_system(sys_, verbose: bool = False):
         if verbose:
             print(f"[warmup] {label}: {_time.perf_counter() - t0:.1f}s",
                   flush=True)
+
+    t0 = _time.perf_counter()
+    _warm_pipeline(sys_)
+    note("tracking lane + mapping pass", t0)
 
     # ---- local-BA chunks at each (C, P, Q) bucket the window can reach
     # (C buckets with the map's growth; huge C x P combos never co-occur) ----

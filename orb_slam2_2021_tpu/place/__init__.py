@@ -1,6 +1,6 @@
 """Place recognition: binary vocabulary, BoW scoring, keyframe database.
 
-TPU-native replacement for DBoW2 (/root/reference/Thirdparty/DBoW2/,
+Device-side replacement for DBoW2 (the reference's Thirdparty/DBoW2/,
 TemplatedVocabulary.h): the k-ary vocabulary tree is a set of static level
 tensors; transforming N descriptors is L batched [N, k] Hamming argmins on
 device. The inverted file and candidate policies (KeyFrameDatabase.cc) stay

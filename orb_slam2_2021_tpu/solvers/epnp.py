@@ -30,20 +30,20 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from ..xmath import HIGHEST
+from ..xmath import HIGHEST, mm
 
 MIN_SAMPLE = 6
 
 
 def _pose_from_p(p, Xh):
     """Projective 3x4 -> (R, t, ok) by sign fix + orthonormalization."""
-    z_proj = Xh @ p[2]
+    z_proj = mm(Xh, p[2])
     p = jnp.where(jnp.sum(z_proj > 0) >= jnp.sum(z_proj < 0), p, -p)
     M = p[:, :3]
     U, S, Vt = jnp.linalg.svd(M)
-    det = jnp.linalg.det(U @ Vt)
+    det = jnp.linalg.det(mm(U, Vt))
     D = jnp.diag(jnp.array([1.0, 1.0, 1.0])).at[2, 2].set(jnp.sign(det))
-    R = U @ D @ Vt
+    R = mm(mm(U, D), Vt)
     scale = jnp.mean(S)
     t = p[:, 3] / jnp.maximum(scale, 1e-12)
     ok = scale > 1e-9
@@ -100,21 +100,21 @@ def _homography_pose(xw, xn, yn, w):
     _, vecs = jnp.linalg.eigh(AtA)
     H = vecs[:, 0].reshape(3, 3)
     # sign: plane points must land in front of the camera
-    z_proj = Ph @ H[2]
+    z_proj = mm(Ph, H[2])
     H = jnp.where(jnp.sum(z_proj > 0) >= jnp.sum(z_proj < 0), H, -H)
     h1, h2, h3 = H[:, 0], H[:, 1], H[:, 2]
     s = jnp.sqrt(jnp.maximum(
         jnp.linalg.norm(h1) * jnp.linalg.norm(h2), 1e-18
     ))
     r1 = h1 / jnp.maximum(jnp.linalg.norm(h1), 1e-12)
-    r2 = h2 - r1 * jnp.dot(r1, h2)
+    r2 = h2 - r1 * jnp.dot(r1, h2, precision=HIGHEST)
     r2 = r2 / jnp.maximum(jnp.linalg.norm(r2), 1e-12)
     r3 = jnp.cross(r1, r2)
     Rp = jnp.stack([r1, r2, r3], axis=1)          # plane -> camera
     tp = h3 / s
     # world -> camera: Xc = Rp E^T (X - c) + tp
-    R = Rp @ E.T
-    t = tp - R @ c
+    R = mm(Rp, E.T)
+    t = tp - mm(R, c)
     ok = s > 1e-9
     return R, t, ok
 

@@ -18,7 +18,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from ..xmath import HIGHEST
+from ..xmath import HIGHEST, mm
 
 
 def horn_align(x1, x2, fix_scale: bool):
@@ -35,9 +35,9 @@ def horn_align(x1, x2, fix_scale: bool):
     # optimum as Horn's quaternion eigen-decomposition, Sim3Solver.cc:225-336)
     M = jnp.einsum("ni,nj->ij", p1, p2, precision=HIGHEST)  # [3,3]
     U, _, Vt = jnp.linalg.svd(M)
-    det = jnp.linalg.det(U @ Vt)
+    det = jnp.linalg.det(mm(U, Vt))
     D = jnp.diag(jnp.array([1.0, 1.0, 1.0])).at[2, 2].set(jnp.sign(det))
-    R = U @ D @ Vt  # rotates frame 2 into frame 1
+    R = mm(mm(U, D), Vt)  # rotates frame 2 into frame 1
 
     # scale (Horn symmetric form; reference uses dot(p1, R p2)/norm2(p2))
     Rp2 = jnp.einsum("ij,nj->ni", R, p2, precision=HIGHEST)
@@ -112,9 +112,9 @@ def sim3_ransac(
     p2 = (x2 - c2) * w[:, None]
     Mm = jnp.einsum("ni,nj->ij", p1, p2, precision=HIGHEST)
     U2, _, Vt2 = jnp.linalg.svd(Mm)
-    det2 = jnp.linalg.det(U2 @ Vt2)
+    det2 = jnp.linalg.det(mm(U2, Vt2))
     D2 = jnp.diag(jnp.array([1.0, 1.0, 1.0])).at[2, 2].set(jnp.sign(det2))
-    Rr = U2 @ D2 @ Vt2
+    Rr = mm(mm(U2, D2), Vt2)
     Rp2 = jnp.einsum("ij,nj->ni", Rr, p2, precision=HIGHEST)
     sr = jnp.where(
         fix_scale, 1.0,

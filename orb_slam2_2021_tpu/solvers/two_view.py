@@ -19,7 +19,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from ..xmath import HIGHEST
+from ..xmath import HIGHEST, mm
 
 SIGMA = 1.0
 TH_H = 5.991
@@ -72,14 +72,14 @@ def _eight_point_f(p1, p2, w=None):
     F = vecs[:, 0].reshape(3, 3)
     U, S, Vt = jnp.linalg.svd(F)
     S = S.at[2].set(0.0)
-    return U @ jnp.diag(S) @ Vt
+    return mm(mm(U, jnp.diag(S)), Vt)
 
 
 def _score_h(H, H_inv, p1, p2, valid, sigma2):
     """CheckHomography: symmetric transfer chi2 score."""
     def transfer(M, a):
         ah = jnp.concatenate([a, jnp.ones((a.shape[0], 1))], axis=1)
-        b = ah @ M.T
+        b = mm(ah, M.T)
         return b[:, :2] / jnp.where(jnp.abs(b[:, 2:3]) < 1e-9, 1e-9, b[:, 2:3])
 
     e12 = jnp.sum((p2 - transfer(H, p1)) ** 2, axis=1) / sigma2
@@ -135,11 +135,11 @@ def _check_rt(R, t, xn1, xn2, valid, fx, fy, sigma2, th2=4.0):
     P2 = jnp.concatenate([R, t[:, None]], axis=1)
     X = _triangulate(P1, P2, xn1, xn2)
     z1 = X[:, 2]
-    Xc2 = X @ R.T + t
+    Xc2 = mm(X, R.T) + t
     z2 = Xc2[:, 2]
     finite = jnp.all(jnp.isfinite(X), axis=1)
     # parallax between rays
-    O2 = -R.T @ t
+    O2 = -mm(R.T, t)
     r1 = X
     r2 = X - O2[None]
     cosp = jnp.sum(r1 * r2, axis=1) / (
@@ -198,10 +198,10 @@ def two_view_init(
     def one_hyp(k):
         idx = jax.random.choice(k, n, shape=(8,), replace=False, p=probs)
         Hn = _dlt_h(p1n_all[idx], p2n_all[idx])
-        H = T2inv @ Hn @ T1
+        H = mm(mm(T2inv, Hn), T1)
         H = H / jnp.where(jnp.abs(H[2, 2]) < 1e-9, 1e-9, H[2, 2])
         Fn = _eight_point_f(p1n_all[idx], p2n_all[idx])
-        F = T2.T @ Fn @ T1
+        F = mm(mm(T2.T, Fn), T1)
         sh, _ = _score_h(H, jnp.linalg.inv(H), p1, p2, valid, sigma2)
         sf, _ = _score_f(F, p1, p2, valid, sigma2)
         return sh, sf, H, F
@@ -221,25 +221,25 @@ def two_view_init(
     # refit the selected model on all its inliers (minimal-sample estimates
     # carry too much noise for a clean decomposition)
     Hn = _dlt_h(p1n_all, p2n_all, inl_h.astype(jnp.float32))
-    H_ref = T2inv @ Hn @ T1
+    H_ref = mm(mm(T2inv, Hn), T1)
     H = H_ref / jnp.where(jnp.abs(H_ref[2, 2]) < 1e-9, 1e-9, H_ref[2, 2])
     Fn = _eight_point_f(p1n_all, p2n_all, inl_f.astype(jnp.float32))
-    F = T2.T @ Fn @ T1
+    F = mm(mm(T2.T, Fn), T1)
     _, inl_h = _score_h(H, jnp.linalg.inv(H), p1, p2, valid, sigma2)
     _, inl_f = _score_f(F, p1, p2, valid, sigma2)
 
     K = jnp.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
     Kinv = jnp.linalg.inv(K)
-    xn1 = (jnp.concatenate([p1, jnp.ones((n, 1))], axis=1) @ Kinv.T)[:, :2]
-    xn2 = (jnp.concatenate([p2, jnp.ones((n, 1))], axis=1) @ Kinv.T)[:, :2]
+    xn1 = mm(jnp.concatenate([p1, jnp.ones((n, 1))], axis=1), Kinv.T)[:, :2]
+    xn2 = mm(jnp.concatenate([p2, jnp.ones((n, 1))], axis=1), Kinv.T)[:, :2]
 
     # --- motion hypotheses ---
     # from F: E = K^T F K -> 4 motions (DecomposeE, :985-1007)
-    E = K.T @ F @ K
+    E = mm(mm(K.T, F), K)
     U, S, Vt = jnp.linalg.svd(E)
     W = jnp.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
-    Ra = U @ W @ Vt
-    Rb = U @ W.T @ Vt
+    Ra = mm(mm(U, W), Vt)
+    Rb = mm(mm(U, W.T), Vt)
     Ra = Ra * jnp.sign(jnp.linalg.det(Ra))
     Rb = Rb * jnp.sign(jnp.linalg.det(Rb))
     tf = U[:, 2]
@@ -252,7 +252,7 @@ def two_view_init(
 
     # from H: Faugeras & Lustman 8-motion decomposition of A = K^-1 H K
     # (ReconstructH, :620-800)
-    A = Kinv @ H @ K
+    A = mm(mm(Kinv, H), K)
     U2, d, Vt2 = jnp.linalg.svd(A)
     sdet = jnp.linalg.det(U2) * jnp.linalg.det(Vt2)
     d1, d2, d3 = d[0], d[1], d[2]
@@ -269,8 +269,8 @@ def two_view_init(
             ct = (d1 * x3 * x3 + d3 * x1 * x1) / jnp.maximum(d2, 1e-12)
             Rp = jnp.array([[ct, 0.0, -st], [0.0, 1.0, 0.0], [st, 0.0, ct]])
             tp = jnp.array([x1, 0.0, -x3]) * (d1 - d3)
-            h_Rs_list.append(sdet * U2 @ Rp @ Vt2)
-            h_ts_list.append(U2 @ tp)
+            h_Rs_list.append(mm(mm(sdet * U2, Rp), Vt2))
+            h_ts_list.append(mm(U2, tp))
     for e1 in (1.0, -1.0):
         for e3 in (1.0, -1.0):
             x1 = e1 * x1m
@@ -280,8 +280,8 @@ def two_view_init(
             cp = (d3 * x1 * x1 - d1 * x3 * x3) / jnp.maximum(d2, 1e-12)
             Rp = jnp.array([[cp, 0.0, sp], [0.0, -1.0, 0.0], [sp, 0.0, -cp]])
             tp = jnp.array([x1, 0.0, x3]) * (d1 + d3)
-            h_Rs_list.append(sdet * U2 @ Rp @ Vt2)
-            h_ts_list.append(U2 @ tp)
+            h_Rs_list.append(mm(mm(sdet * U2, Rp), Vt2))
+            h_ts_list.append(mm(U2, tp))
     h_Rs = jnp.stack(h_Rs_list)
     h_ts = jnp.stack(h_ts_list)
     h_ts = h_ts / (jnp.linalg.norm(h_ts, axis=1, keepdims=True) + 1e-12)

@@ -8,7 +8,7 @@ lk_* goodenough logic), and YAML emission in the engine's config format
 (Examples/Stereo/arducam.yaml keys: Camera.fx/fy/cx/cy, LEFT./RIGHT. K, D,
 R, P).
 
-The math is TPU-native where it is compute: the joint reprojection
+The math runs on the device where it is compute: the joint reprojection
 refinement is a vmapped Levenberg-Marquardt over all views/corners in JAX
 (the reference defers to cv2.calibrateCamera's C++ LM). The closed-form
 initialization (Zhang 2000: DLT homographies -> B-matrix intrinsics ->
@@ -148,18 +148,20 @@ def _project(params, rvecs, tvecs, obj):
     """params: [fx, fy, cx, cy, k1, k2, p1, p2, k3]; obj: [V, M, 3]."""
     import jax.numpy as jnp
 
+    from ..xmath import HIGHEST, mm
+
     fx, fy, cx, cy, k1, k2, p1, p2, k3 = [params[i] for i in range(9)]
 
     def rodrigues(rv):
         th = jnp.linalg.norm(rv) + 1e-12
         k = rv / th
         Kx = jnp.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
-        return jnp.eye(3) + jnp.sin(th) * Kx + (1 - jnp.cos(th)) * (Kx @ Kx)
+        return jnp.eye(3) + jnp.sin(th) * Kx + (1 - jnp.cos(th)) * mm(Kx, Kx)
 
     import jax
 
     Rs = jax.vmap(rodrigues)(rvecs)                       # [V, 3, 3]
-    xc = jnp.einsum("vij,vmj->vmi", Rs, obj) + tvecs[:, None, :]
+    xc = jnp.einsum("vij,vmj->vmi", Rs, obj, precision=HIGHEST) + tvecs[:, None, :]
     x = xc[..., 0] / xc[..., 2]
     y = xc[..., 1] / xc[..., 2]
     r2 = x * x + y * y
@@ -176,6 +178,8 @@ def _make_lm_refine(n_views: int, n_pts: int, iters: int = 30):
     import jax
     import jax.numpy as jnp
 
+    from ..xmath import mm
+
     def residual(theta, obj, img):
         params = theta[:9]
         rvecs = theta[9:9 + 3 * n_views].reshape(n_views, 3)
@@ -188,8 +192,8 @@ def _make_lm_refine(n_views: int, n_pts: int, iters: int = 30):
             theta, lam = carry
             r = residual(theta, obj, img)
             J = jax.jacfwd(residual)(theta, obj, img)
-            JtJ = J.T @ J
-            g = J.T @ r
+            JtJ = mm(J.T, J)
+            g = mm(J.T, r)
             A = JtJ + lam * jnp.diag(jnp.diag(JtJ))
             delta = jnp.linalg.solve(A, g)
             theta_new = theta - delta

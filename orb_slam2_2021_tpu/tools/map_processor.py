@@ -33,10 +33,12 @@ def statistical_outlier_filter(points: np.ndarray, k: int = 50,
     nearest neighbors exceeds global_mean + std_ratio * global_std.
 
     Returns a boolean keep-mask [N]. Distances are computed as one [N, N]
-    device matrix + top_k — MXU/VPU work instead of a kd-tree.
+    device matrix + top_k — dense device work instead of a kd-tree.
     """
     import jax
     import jax.numpy as jnp
+
+    from ..xmath import mm
 
     n = len(points)
     if n == 0:
@@ -48,7 +50,7 @@ def statistical_outlier_filter(points: np.ndarray, k: int = 50,
     @functools.partial(jax.jit, static_argnums=(1,))
     def mean_knn_dist(p, kk):
         sq = jnp.sum(p * p, axis=1)
-        d2 = sq[:, None] + sq[None, :] - 2.0 * (p @ p.T)
+        d2 = sq[:, None] + sq[None, :] - 2.0 * mm(p, p.T)
         d2 = jnp.maximum(d2, 0.0).at[jnp.arange(p.shape[0]), jnp.arange(p.shape[0])].set(jnp.inf)
         neg_top, _ = jax.lax.top_k(-d2, kk)
         return jnp.mean(jnp.sqrt(-neg_top), axis=1)

@@ -1,10 +1,11 @@
 """Device-queue pacing between the tracking lane and background workers.
 
-The TPU executes dispatches in order on ONE stream, so any bulk work the
-mapping worker or GBA thread enqueues delays the tracking lane's next
-dispatch AND its result readback — measured on the r5 bench as 100-450 ms
-`fused.pull` waits whenever a keyframe was being processed (the map pass +
-local BA queue ~0.5-1 s of device work ahead of the frame). The reference
+One process dispatches every thread's work to one device queue, so bulk
+work the mapping worker or GBA thread enqueues can delay the tracking
+lane's next dispatch AND its result readback whenever a keyframe is being
+processed (the map pass + local BA queue device work ahead of the frame).
+Whether this pacing still pays on a GPU is an open measurement
+(ROADMAP.md 3.3). The reference
 does not have this problem because its threads run on independent CPU cores
 (System.cc:129-140); on a single shared accelerator the equivalent is
 PRIORITY SCHEDULING of the dispatch queue.

@@ -2,7 +2,7 @@
 
 The reference renders with Pangolin (3-D map view, /root/reference/src/
 MapDrawer.cc, Viewer.cc) and OpenCV windows (tracked-feature overlay,
-FrameDrawer.cc). A TPU-production engine runs headless, so the equivalents
+FrameDrawer.cc). A production engine on an accelerator runs headless, so the equivalents
 here rasterize to numpy RGB images and PNG files; a live consumer can
 subscribe to them through orb_slam2_2021_tpu.io.pubsub.
 """

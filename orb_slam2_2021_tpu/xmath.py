@@ -1,10 +1,12 @@
 """Precision-pinned linear algebra helpers.
 
-This platform's default matmul precision is TPU-style (bf16 passes) even for
-f32 inputs, which is fine for image kernels but fatal for Lie-group chains and
-bundle-adjustment normal equations (g2o runs double; we run f32 + HIGHEST).
-All geometry/optimizer contractions go through these helpers; hot perception
-kernels deliberately do not.
+On a GPU with tensor cores (A100, H100) an f32 matrix product at JAX's
+default precision runs in TF32 — about 10 mantissa bits — and so does
+Precision.HIGH. That is fine for image kernels but fatal for Lie-group chains
+and bundle-adjustment normal equations (g2o runs double; we run f32 +
+HIGHEST, which is full f32). All geometry/optimizer contractions go through
+these helpers or pass precision=HIGHEST; the hot perception kernels cast to
+bf16 explicitly and accumulate in f32.
 """
 
 from __future__ import annotations
@@ -31,10 +33,10 @@ def apply_R(R, x):
 
 
 # --- batched SMALL matmuls --------------------------------------------------
-# A dot_general over a large batch of 3x3 / 3x6 operands runs the MXU at <1%
-# tile utilization (and 6 bf16 passes under HIGHEST). Broadcast-multiply-sum
-# keeps these on the VPU in exact f32 — the right mapping when the contracted
-# dims are tiny and the batch is huge (per-observation Jacobian algebra).
+# A dot_general over a large batch of 3x3 / 3x6 operands leaves a matrix
+# unit nearly idle. Broadcast-multiply-sum keeps these as exact f32
+# elementwise work — the right mapping when the contracted dims are tiny and
+# the batch is huge (per-observation Jacobian algebra).
 
 def smm(a, b):
     """[..., m, k] @ [..., k, n] -> [..., m, n] (tiny m/k/n, huge batch)."""

@@ -13,7 +13,9 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_default_matmul_precision", "highest")
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
+from orb_slam2_2021_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 

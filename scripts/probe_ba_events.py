@@ -1,7 +1,6 @@
-"""Per-event local-BA timing on the real chip: drive enough frames that the
+"""Per-event local-BA timing on the device: drive enough frames that the
 shape buckets stabilize, then print every BA event's dispatch/pull time so
-cold (bucket-compile) events separate from the steady state (VERDICT r3
-item 5: decompose the frame budget honestly)."""
+cold (bucket-compile) events separate from the steady state."""
 
 import os
 import sys
@@ -15,9 +14,9 @@ import numpy as np
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+    from orb_slam2_2021_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from orb_slam2_2021_tpu.config import kitti_stereo_config
     from orb_slam2_2021_tpu.io.synthetic import SyntheticStereoWorld

@@ -1,4 +1,4 @@
-"""Stage-level decomposition of the 19 ms frame build on the real chip."""
+"""Stage-level decomposition of the stereo frame build on the device."""
 
 import os
 import sys
@@ -12,9 +12,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+    from orb_slam2_2021_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from orb_slam2_2021_tpu.config import kitti_stereo_config
     from orb_slam2_2021_tpu.frontend import features as F

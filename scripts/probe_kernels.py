@@ -1,4 +1,4 @@
-"""Honest per-kernel device timings (forced-readback fence) for the programs
+"""Per-kernel device timings (utils/timing.time_device) for the programs
 that make up the tracking lane and the per-KF mapping pass — the
 decomposition that tells us which kernel to attack for speed-of-light work."""
 
@@ -14,9 +14,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+    from orb_slam2_2021_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from orb_slam2_2021_tpu.config import kitti_stereo_config
     from orb_slam2_2021_tpu.frontend.frame import make_stereo_frame_u8_fn

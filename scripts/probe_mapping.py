@@ -1,6 +1,6 @@
-"""Solo-machine probe: per-KF mapping-pass cost decomposition on the real
-chip (snapshot / dispatch / pull / merge) plus tracking-lane latency jitter
-around KF events — the mean-vs-median gap that caps e2e fps."""
+"""Probe: per-KF mapping-pass cost decomposition on the device (snapshot /
+dispatch / pull / merge) plus tracking-lane latency jitter around KF events
+— the mean-vs-median gap that caps e2e fps."""
 
 import os
 import sys
@@ -14,9 +14,9 @@ import numpy as np
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+    from orb_slam2_2021_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from orb_slam2_2021_tpu.config import kitti_stereo_config
     from orb_slam2_2021_tpu.io.synthetic import SyntheticCylinderWorld, orbit_trajectory
@@ -34,7 +34,6 @@ def main():
             tri = self._snapshot_triangulation(k)
             fuse = self._snapshot_fuse(k)
         t1 = time.perf_counter()
-        from orb_slam2_2021_tpu.utils.timing import fence
         dev = []
         tri_ms = fuse_ms = 0.0
         if tri is not None:
@@ -42,7 +41,7 @@ def main():
             out = self._tri_batch_fn(self.cam, view1, views2)
             dev.append(out[:3])
             tf = time.perf_counter()
-            fence(out[0])
+            jax.block_until_ready(out[0])
             tri_ms = 1e3 * (time.perf_counter() - tf)
         if fuse is not None:
             _, chunks, args, back = fuse
@@ -53,7 +52,7 @@ def main():
                 best_feat, accept, _ = self._fuse_fn(self.cam, view, bargs)
                 dev.append((accept, best_feat))
             tf = time.perf_counter()
-            fence(dev[-1][0])
+            jax.block_until_ready(dev[-1][0])
             fuse_ms = 1e3 * (time.perf_counter() - tf)
         t2 = time.perf_counter()
         if not dev:
@@ -96,16 +95,7 @@ def main():
     cfg = kitti_stereo_config()
     world = SyntheticCylinderWorld(cfg, seed=7)
     gt = orbit_trajectory(64, total_deg=280.0, r_orbit=1.5)
-    cache = "/tmp/probe_map_frames.npz"
-    if os.path.exists(cache):
-        z = np.load(cache)
-        frames = [(z["l"][i], z["r"][i]) for i in range(len(gt))]
-    else:
-        frames = [world.render(R, t) for (R, t) in gt]
-        np.savez_compressed(
-            cache,
-            l=np.stack([np.clip(l, 0, 255).astype(np.uint8) for l, _ in frames]),
-            r=np.stack([np.clip(r, 0, 255).astype(np.uint8) for _, r in frames]))
+    frames = [world.render(R, t) for (R, t) in gt]
 
     sys_ = System(cfg, async_mode=False)
     ft = []

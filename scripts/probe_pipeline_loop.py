@@ -1,8 +1,8 @@
 import time, numpy as np, jax, jax.numpy as jnp, sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+from orb_slam2_2021_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 from orb_slam2_2021_tpu.config import kitti_stereo_config
 from orb_slam2_2021_tpu.frontend.frame import build_stereo_frame
 from orb_slam2_2021_tpu.pipeline.track_steps import make_fused_track_packed_fn

@@ -1,5 +1,5 @@
 """Per-stage wall-time breakdown of the end-to-end system on the current
-JAX platform (run plain for the real chip, or JAX_PLATFORMS=cpu for host).
+JAX platform (run plain for the GPU, or JAX_PLATFORMS=cpu for host).
 
 Monkey-patches timers around the tracking sub-stages and the mapping worker
 so we can see where a frame's budget goes before optimizing (VERDICT round-1
@@ -20,9 +20,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+    from orb_slam2_2021_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from orb_slam2_2021_tpu.config import kitti_stereo_config
     from orb_slam2_2021_tpu.io.synthetic import SyntheticStereoWorld

@@ -28,9 +28,9 @@ import numpy as np
 import jax
 if os.environ.get("SCALE_PLATFORM"):
     jax.config.update("jax_platforms", os.environ["SCALE_PLATFORM"])
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+from orb_slam2_2021_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():
